@@ -3,11 +3,10 @@
 The reference re-uploads its DoVi dynamic cbuffers per sample
 (Source/DX11VideoProcessor.cpp:990-1130) so the compiled shader never
 changes mid-stream.  The analogue here: ONE jitted serving program whose
-runtime inputs carry the curve values; both stages of the split-fused
-pipeline run as Pallas kernels, with the reshape coefficients riding the
-stage-A kernel's SMEM scalar vector.
+runtime inputs carry the curve values through both stages of the
+split-fused pipeline.
 
-Run (TPU):  python examples/dovi_serving.py
+Run:  python examples/dovi_serving.py   (GPU, or JAX_PLATFORMS=cpu)
 """
 
 import os
@@ -21,12 +20,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from videorenderer_tpu import (ColorFormat, OutputDescriptor, Settings,
+from videorenderer import (ColorFormat, OutputDescriptor, Settings,
                                SourceDescriptor)
-from videorenderer_tpu.config import Upscaling
-from videorenderer_tpu.csputils import CSP, Primaries, TRC
-from videorenderer_tpu.ops import dovi as dovi_ops
-from videorenderer_tpu.pipeline import (HDR10Metadata, make_serving_fn,
+from videorenderer.config import Upscaling
+from videorenderer.csputils import CSP, Primaries, TRC
+from videorenderer.ops import dovi as dovi_ops
+from videorenderer.pipeline import (HDR10Metadata, make_serving_fn,
                                         plan_pipeline)
 
 
@@ -66,7 +65,7 @@ def main():
                   for k, v in base.items()}
         t0 = time.perf_counter()
         out = fn(batch, {"dovi_curves": curves})
-        np.asarray(out.ravel()[0])
+        out.block_until_ready()
         print(f"scene {scene}: {out.shape} in "
               f"{time.perf_counter() - t0:.3f}s "
               f"({'compile+run' if scene == 0 else 'run only'})")

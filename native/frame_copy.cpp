@@ -1,15 +1,15 @@
-// Native frame repack kernels — the TPU framework's analogue of the
+// Native frame repack kernels — the framework's analogue of the
 // reference's SIMD plane copiers (Source/Helper.cpp:414-900,
 // Source/Utils/gpu_memcpy_sse4.h).  Compiled with -O3 -march=native so the
 // compiler autovectorizes the byte-shuffle loops; exposed to Python via
-// ctypes (videorenderer_tpu/io/native.py).
+// ctypes (videorenderer/io/native.py).
 //
 // The *_p entry points take a src_pitch (bytes per packed/luma row, like
 // the reference copiers' src_pitch argument, Source/Helper.cpp:414-428) so
 // pitched decoder buffers repack straight to planar with no intermediate
 // host copy; negative pitch = bottom-up rows for the DIB RGB formats.
 // The pitchless entry points forward with the tight pitch.  Outputs match
-// videorenderer_tpu/formats.py semantics (10-bit values MSB-aligned into
+// videorenderer/formats.py semantics (10-bit values MSB-aligned into
 // uint16 planes, value << 6).
 
 #include <cstdint>

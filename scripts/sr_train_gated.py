@@ -99,13 +99,13 @@ def main() -> int:
     import jax.numpy as jnp
     import optax
 
-    from videorenderer_tpu.models.checkpoint import load_params, save_params
-    from videorenderer_tpu.models.real_eval import real_frames, real_photos
-    from videorenderer_tpu.models.sr_train import (degrade, evaluate_psnr,
+    from videorenderer.models.checkpoint import load_params, save_params
+    from videorenderer.models.real_eval import real_frames, real_photos
+    from videorenderer.models.sr_train import (degrade, evaluate_psnr,
                                                    jpeg_roundtrip,
                                                    natural_frames,
                                                    synth_frames)
-    from videorenderer_tpu.models.superres import (SuperResConfig, init_params,
+    from videorenderer.models.superres import (SuperResConfig, init_params,
                                                    loss_fn)
 
     kw = {}
@@ -123,7 +123,7 @@ def main() -> int:
     # -- data: synth + natural + JPEG-roundtripped natural + defocused
     # natural (still zero photographs — codec and optics are the
     # augmentations), degraded by the framework's downscaler
-    from videorenderer_tpu.models.sr_train import soften
+    from videorenderer.models.sr_train import soften
     n_nat = int(args.frames * args.natural_mix)
     n_jpg = int(args.frames * args.jpeg_mix)
     n_soft = int(args.frames * args.soft_mix)

@@ -1,6 +1,6 @@
 """Independent numpy (float64) oracle implementing the reference's HLSL
 sampling semantics per-pixel, straight from the shader text.  Used to verify
-the TPU package's phase-composed / matmul-based formulations.
+the package's phase-composed / matmul-based formulations.
 
 HLSL conventions modeled here:
  * texture coordinates u in [0,1]; texel centers at (i+0.5)/N

@@ -10,12 +10,12 @@ driven ``DeinterlaceSession`` produces.
 import numpy as np
 import pytest
 
-from videorenderer_tpu import (ColorFormat, OutputDescriptor, Settings,
+from videorenderer import (ColorFormat, OutputDescriptor, Settings,
                                SourceDescriptor)
-from videorenderer_tpu.api import VideoRenderer
-from videorenderer_tpu.config import Deinterlacing
-from videorenderer_tpu.csputils import CSP
-from videorenderer_tpu.runner import DeinterlaceSession
+from videorenderer.api import VideoRenderer
+from videorenderer.config import Deinterlacing
+from videorenderer.csputils import CSP
+from videorenderer.runner import DeinterlaceSession
 
 W, H = 32, 16
 
@@ -114,7 +114,7 @@ def test_deint_composes_with_rotation_tail():
     # the plan ran at swapped dims; rotation lands in the real surface
     assert got[0].shape == (3, H, W)
 
-    from videorenderer_tpu.ops import geometry as geo_ops
+    from videorenderer.ops import geometry as geo_ops
     want = _drive_session(DeinterlaceSession(vr._plan, double_rate=True),
                           frames)
     for g, w in zip(got, want):
@@ -137,7 +137,7 @@ def test_deint_field_order_from_descriptor():
 
 def test_deint_session_resets_on_reconfigure():
     import dataclasses
-    from videorenderer_tpu.config import Upscaling
+    from videorenderer.config import Upscaling
     frames = _frames(3, seed=4)
     vr = _open(double=True)
     vr.process_frame(frames[0])

@@ -3,7 +3,7 @@ models x packed surface through VideoRenderer.
 
 The invariant: for ANY composition, the packed-surface renderer's dwords
 equal the XLA pack of the planar renderer's output — whether the pack ran
-in-kernel (geometry-only tail), deferred (float tails), or after model
+in the base program (geometry-only tail), deferred (float tails), or after model
 hooks.  Catches ordering/geometry/packing drift across the feature
 matrix."""
 
@@ -15,12 +15,12 @@ import pytest
 
 import jax
 
-from videorenderer_tpu import (ColorFormat, OutputDescriptor, Settings,
+from videorenderer import (ColorFormat, OutputDescriptor, Settings,
                                SourceDescriptor)
-from videorenderer_tpu.api import VideoRenderer
-from videorenderer_tpu.config import SuperResolution
-from videorenderer_tpu.csputils import CSP
-from videorenderer_tpu.pipeline import _pack_surface_xla
+from videorenderer.api import VideoRenderer
+from videorenderer.config import SuperResolution
+from videorenderer.csputils import CSP
+from videorenderer.pipeline import _pack_surface_xla
 
 
 def _planes(w, h, seed):
@@ -31,7 +31,7 @@ def _planes(w, h, seed):
 
 
 def test_api_composition_fuzz():
-    from videorenderer_tpu.models import superres, videohdr
+    from videorenderer.models import superres, videohdr
 
     sr_cfg = superres.SuperResConfig(channels=8, num_blocks=1, s2d=2)
     sr_params = superres.init_params(jax.random.PRNGKey(0), sr_cfg)

@@ -3,9 +3,9 @@
 import numpy as np
 import jax
 
-from videorenderer_tpu.models import checkpoint, superres
-from videorenderer_tpu.utils.trace import stage_timer
-from videorenderer_tpu.stats import RenderStats
+from videorenderer.models import checkpoint, superres
+from videorenderer.utils.trace import stage_timer
+from videorenderer.stats import RenderStats
 
 
 def test_checkpoint_roundtrip(tmp_path):

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from videorenderer_tpu.config import ChromaScaling
-from videorenderer_tpu.csputils import ChromaLocation
-from videorenderer_tpu.ops import chroma
+from videorenderer.config import ChromaScaling
+from videorenderer.csputils import ChromaLocation
+from videorenderer.ops import chroma
 
 from oracle import chroma_upsample_420, chroma_upsample_422
 

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from videorenderer_tpu.cli import main
+from videorenderer.cli import main
 
 
 def _write_nv12(path, w, h, frames=2, seed=0):
@@ -55,7 +55,7 @@ def test_cli_missing_file(tmp_path):
 def test_cli_info(capsys):
     assert main(["info"]) == 0
     out = capsys.readouterr().out
-    assert "videorenderer_tpu" in out
+    assert "videorenderer" in out
 
 
 def test_cli_settings_roundtrip(tmp_path, capsys):
@@ -87,7 +87,7 @@ def test_cli_deinterlace_and_srt(tmp_path):
 
 
 def test_cli_y4m(tmp_path):
-    from videorenderer_tpu.io.y4m import Y4MSource, write_y4m
+    from videorenderer.io.y4m import Y4MSource, write_y4m
     rng = np.random.default_rng(0)
     frames = []
     for _ in range(2):

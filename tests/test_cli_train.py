@@ -7,7 +7,7 @@ import os
 
 import numpy as np
 
-from videorenderer_tpu.cli import main
+from videorenderer.cli import main
 
 
 def _mk_clip(path, w=32, h=16):

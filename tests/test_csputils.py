@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from videorenderer_tpu import csputils as cs
+from videorenderer import csputils as cs
 
 
 def test_bt709_tv_matrix_known_values():
@@ -119,7 +119,7 @@ def test_default_matrix_for_size():
 
 
 def test_settings_roundtrip_with_vp_formats():
-    from videorenderer_tpu.config import Settings, VPEnableFormats, Upscaling
+    from videorenderer.config import Settings, VPEnableFormats, Upscaling
     s = Settings(vp_formats=VPEnableFormats(nv12=False, yuy2=False),
                  upscaling=Upscaling.LANCZOS3, sdr_display_nits=9999)
     d = s.to_dict()

@@ -1,7 +1,7 @@
 """Display config / HDR toggle policy tests (HandleHDRToggle port)."""
 
-from videorenderer_tpu.config import HdrToggleDisplay
-from videorenderer_tpu.display import DisplayConfig, HdrToggleController
+from videorenderer.config import HdrToggleDisplay
+from videorenderer.display import DisplayConfig, HdrToggleController
 
 
 def _ctl(hdr_enabled=False, hdr_supported=True):

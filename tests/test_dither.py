@@ -7,7 +7,7 @@ import jax.numpy as jnp
 def test_bayer_field_matches_matrix():
     """Iota-generated (kernel-safe) Bayer pattern == the recursive matrix,
     including row/col offsets."""
-    from videorenderer_tpu.ops.dither import bayer_field, bayer_matrix
+    from videorenderer.ops.dither import bayer_field, bayer_matrix
     ref = np.tile(bayer_matrix(32), (3, 3))
     got = np.asarray(bayer_field(96, 96))
     np.testing.assert_array_equal(got, ref.astype(np.float32))
@@ -17,7 +17,7 @@ def test_bayer_field_matches_matrix():
 
 
 def test_ordered_dither_iota_matches_classic():
-    from videorenderer_tpu.ops.dither import ordered_dither, ordered_dither_iota
+    from videorenderer.ops.dither import ordered_dither, ordered_dither_iota
     rng = np.random.default_rng(3)
     img = rng.random((3, 40, 70)).astype(np.float32)
     a = np.asarray(ordered_dither(jnp.asarray(img), 8))

@@ -4,11 +4,11 @@ CopySample semantics (Source/DX11VideoProcessor.cpp:2357-2500)."""
 import numpy as np
 import pytest
 
-from videorenderer_tpu import (ColorFormat, OutputDescriptor, Settings,
+from videorenderer import (ColorFormat, OutputDescriptor, Settings,
                                SourceDescriptor)
-from videorenderer_tpu.csputils import CSP, Primaries, TRC
-from videorenderer_tpu.ops import dovi as dovi_ops
-from videorenderer_tpu.ops.dovi_ext import (DoviExtensions, L1Extension,
+from videorenderer.csputils import CSP, Primaries, TRC
+from videorenderer.ops import dovi as dovi_ops
+from videorenderer.ops.dovi_ext import (DoviExtensions, L1Extension,
                                             L2Extension, L3Extension,
                                             L6Extension, l1_nits,
                                             merge_hdr10, nits_to_pq,
@@ -16,7 +16,7 @@ from videorenderer_tpu.ops.dovi_ext import (DoviExtensions, L1Extension,
                                             runtime_hdr_from_extensions,
                                             runtime_trims_from_extensions,
                                             select_l2_trims)
-from videorenderer_tpu.pipeline import HDR10Metadata, plan_pipeline
+from videorenderer.pipeline import HDR10Metadata, plan_pipeline
 
 
 def test_pq_nits_roundtrip():
@@ -121,7 +121,7 @@ def _identity_meta():
 
 
 def _hdr_plan(ext, tm_type=5):
-    from videorenderer_tpu.config import ToneMapType
+    from videorenderer.config import ToneMapType
     src = SourceDescriptor(format=ColorFormat.P010, width=32, height=16,
                            transfer=TRC.PQ, primaries=Primaries.BT_2020,
                            matrix=CSP.BT_2020_NC, dovi=_identity_meta(),
@@ -168,7 +168,7 @@ def test_serving_no_retrace_across_scenes():
     program, per-scene runtime dicts, no retrace (VERDICT r1 item 4)."""
     import jax
     import jax.numpy as jnp
-    from videorenderer_tpu.pipeline import make_serving_fn
+    from videorenderer.pipeline import make_serving_fn
 
     ext0 = DoviExtensions(l1=L1Extension(62, 3079, 1229), l2=(_l2(600, 1900),))
     plan = _hdr_plan(ext0, tm_type=5)

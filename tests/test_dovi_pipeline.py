@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from videorenderer_tpu import (ColorFormat, OutputDescriptor, Settings,
+from videorenderer import (ColorFormat, OutputDescriptor, Settings,
                                SourceDescriptor)
-from videorenderer_tpu.csputils import CSP, Levels, Primaries, TRC
-from videorenderer_tpu.ops import dovi as dovi_ops
-from videorenderer_tpu.ops.tonemap import DoviTrims
-from videorenderer_tpu.pipeline import VideoProcessor, plan_pipeline, _can_fuse
+from videorenderer.csputils import CSP, Levels, Primaries, TRC
+from videorenderer.ops import dovi as dovi_ops
+from videorenderer.ops.tonemap import DoviTrims
+from videorenderer.pipeline import VideoProcessor, plan_pipeline, _can_fuse
 
 
 def _identity_meta():
@@ -83,8 +83,8 @@ def test_serving_fn_runtime_metadata():
     metadata without retracing."""
     import jax
     import jax.numpy as jnp
-    from videorenderer_tpu.config import ToneMapType
-    from videorenderer_tpu.pipeline import make_serving_fn, HDR10Metadata
+    from videorenderer.config import ToneMapType
+    from videorenderer.pipeline import make_serving_fn, HDR10Metadata
 
     meta = _identity_meta()
     src = SourceDescriptor(format=ColorFormat.P010, width=32, height=16,
@@ -129,8 +129,8 @@ def test_serving_fn_runtime_procamp():
     change flows through without retrace."""
     import jax
     import jax.numpy as jnp
-    from videorenderer_tpu.pipeline import make_serving_fn
-    from videorenderer_tpu.csputils import (CSPParams, Colorspace, Levels,
+    from videorenderer.pipeline import make_serving_fn
+    from videorenderer.csputils import (CSPParams, Colorspace, Levels,
                                             get_csp_matrix)
 
     src = SourceDescriptor(format=ColorFormat.NV12, width=32, height=16,
@@ -164,7 +164,7 @@ def test_serving_fn_runtime_procamp():
 def _poly_meta():
     """Non-identity 2-piece polynomial curves to exercise the reshape."""
     import numpy as np
-    from videorenderer_tpu.ops.dovi import ReshapeCurve
+    from videorenderer.ops.dovi import ReshapeCurve
 
     curve = ReshapeCurve(pivots=(0.5,), method=(0, 0),
                          poly=np.array([[0.02, 0.9, 0.1],
@@ -183,7 +183,7 @@ def test_dovi_split_fused_matches_staged(out_size):
     """The DoVi split-fused path (banded kernels around the reshape) must
     match the staged path — VERDICT r1 item 5."""
     import jax
-    from videorenderer_tpu.pipeline import _can_split_fuse, make_frame_fn
+    from videorenderer.pipeline import _can_split_fuse, make_frame_fn
 
     ow, oh = out_size
     meta = _poly_meta()
@@ -212,7 +212,7 @@ def test_dovi_serving_uses_split_fused_path():
     result."""
     import jax
     import jax.numpy as jnp
-    from videorenderer_tpu.pipeline import make_frame_fn, make_serving_fn
+    from videorenderer.pipeline import make_frame_fn, make_serving_fn
 
     meta = _poly_meta()
     src = SourceDescriptor(format=ColorFormat.P010, width=32, height=16,
@@ -249,7 +249,7 @@ def test_pack_curves_structure_guard():
     """pack_curves(like=plan_structure) raises when a scene's RPU changes
     the curve STRUCTURE (which requires a re-plan), instead of letting a
     structure-pruned serving program silently corrupt frames."""
-    from videorenderer_tpu.ops import dovi as dovi_ops
+    from videorenderer.ops import dovi as dovi_ops
 
     meta1 = _identity_meta()
     struct = dovi_ops.curve_structure(meta1)
@@ -269,8 +269,8 @@ def test_pack_curves_structure_guard():
 
 
 def test_deint_session_mode_mixing_raises():
-    from videorenderer_tpu.pipeline import plan_pipeline
-    from videorenderer_tpu.runner import DeinterlaceSession
+    from videorenderer.pipeline import plan_pipeline
+    from videorenderer.runner import DeinterlaceSession
 
     plan = plan_pipeline(
         Settings(use_dither=False),

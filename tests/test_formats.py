@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from videorenderer_tpu.formats import (ColorFormat, ColorSystem, FORMATS,
+from videorenderer.formats import (ColorFormat, ColorSystem, FORMATS,
                                        get_format_info, pack_rgb8, pack_rgb10,
                                        unpack_frame, unpack_rgb10)
 

@@ -4,11 +4,11 @@ import numpy as np
 import jax
 import pytest
 
-from videorenderer_tpu import (ColorFormat, OutputDescriptor, Settings,
+from videorenderer import (ColorFormat, OutputDescriptor, Settings,
                                SourceDescriptor)
-from videorenderer_tpu.config import ChromaScaling, Downscaling, Upscaling
-from videorenderer_tpu.csputils import CSP, Levels, Primaries, TRC
-from videorenderer_tpu.pipeline import make_frame_fn, plan_pipeline, _can_fuse
+from videorenderer.config import ChromaScaling, Downscaling, Upscaling
+from videorenderer.csputils import CSP, Levels, Primaries, TRC
+from videorenderer.pipeline import make_frame_fn, plan_pipeline, _can_fuse
 
 
 def _planes(fmt, w, h, seed=0, bits=8):
@@ -17,7 +17,7 @@ def _planes(fmt, w, h, seed=0, bits=8):
         mk = lambda hh, ww: rng.integers(0, 256, (hh, ww), np.uint8)
     else:
         mk = lambda hh, ww: (rng.integers(0, 1024, (hh, ww), np.uint16) << 6)
-    from videorenderer_tpu.formats import get_format_info
+    from videorenderer.formats import get_format_info
     shapes = get_format_info(fmt).plane_shapes(w, h)
     return tuple(mk(hh, ww) for hh, ww in shapes)
 
@@ -89,26 +89,13 @@ def test_fused_with_dither_matches():
     assert (diff > 0.5).mean() < 1e-3
 
 
-def test_vp_format_allowlist():
-    from videorenderer_tpu.pipeline import _vp_format_allowed
-    from videorenderer_tpu.config import VPEnableFormats
-    from videorenderer_tpu.formats import get_format_info
-    import dataclasses
-    st = Settings(vp_formats=VPEnableFormats(nv12=False, p01x=True,
-                                             yuy2=False, other=True))
-    assert not _vp_format_allowed(st, get_format_info(ColorFormat.NV12))
-    assert _vp_format_allowed(st, get_format_info(ColorFormat.P010))
-    assert not _vp_format_allowed(st, get_format_info(ColorFormat.YUY2))
-    assert _vp_format_allowed(st, get_format_info(ColorFormat.RGB24))
-
-
 def test_config_fuzz_fused_vs_staged():
     """Seeded sweep over random (format, size, settings) combinations: the
     pipeline must build and run for every combination, and whenever the
     fused path is legal it must match the staged path."""
-    from videorenderer_tpu.config import (ChromaScaling, Downscaling,
+    from videorenderer.config import (ChromaScaling, Downscaling,
                                           Upscaling)
-    from videorenderer_tpu.formats import get_format_info
+    from videorenderer.formats import get_format_info
 
     rng = np.random.default_rng(1234)
     fmts = [ColorFormat.NV12, ColorFormat.P010, ColorFormat.YUY2,

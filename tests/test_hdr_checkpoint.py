@@ -9,10 +9,10 @@ import pytest
 
 import jax
 
-from videorenderer_tpu.models.checkpoint import load_params
-from videorenderer_tpu.models.hdr_train import (evaluate_pq_psnr,
+from videorenderer.models.checkpoint import load_params
+from videorenderer.models.hdr_train import (evaluate_pq_psnr,
                                                 synth_hdr_frames)
-from videorenderer_tpu.models.videohdr import VideoHDRConfig, init_params
+from videorenderer.models.videohdr import VideoHDRConfig, init_params
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "weights",
                     "videohdr.npz")

@@ -8,11 +8,11 @@ import pytest
 
 import jax
 
-from videorenderer_tpu.models.hdr_train import (degrade_to_sdr,
+from videorenderer.models.hdr_train import (degrade_to_sdr,
                                                 evaluate_pq_psnr,
                                                 hdr_truth_pq,
                                                 synth_hdr_frames, train)
-from videorenderer_tpu.models.videohdr import (VideoHDRConfig, apply_fn,
+from videorenderer.models.videohdr import (VideoHDRConfig, apply_fn,
                                                init_params)
 
 TINY = VideoHDRConfig(channels=8)

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from videorenderer_tpu.io.image import save_bmp, save_image
-from videorenderer_tpu.io.srt import parse_srt
+from videorenderer.io.image import save_bmp, save_image
+from videorenderer.io.srt import parse_srt
 
 
 def test_bmp_roundtrip(tmp_path):
@@ -51,7 +51,7 @@ def test_parse_srt_no_index_and_dot_ms():
 def test_y4m_frame_params(tmp_path):
     """YUV4MPEG2 frame markers may carry parameters ("FRAME Ixxx\\n"); the
     reader measures the marker length instead of assuming 6 bytes."""
-    from videorenderer_tpu.io.y4m import Y4MSource
+    from videorenderer.io.y4m import Y4MSource
     w, h = 16, 8
     rng = np.random.default_rng(0)
     frames = [(rng.integers(0, 256, (h, w), np.uint8),

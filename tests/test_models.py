@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from videorenderer_tpu.config import SuperResolution
-from videorenderer_tpu.models import superres, videohdr
+from videorenderer.config import SuperResolution
+from videorenderer.models import superres, videohdr
 
 
 def test_superres_shapes_and_train_step():

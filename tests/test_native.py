@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from videorenderer_tpu import formats
-from videorenderer_tpu.formats import ColorFormat, unpack_frame
-from videorenderer_tpu.io import native
+from videorenderer import formats
+from videorenderer.formats import ColorFormat, unpack_frame
+from videorenderer.io import native
 
 
 pytestmark = pytest.mark.skipif(not native.available(),

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from videorenderer_tpu.ops import deinterlace as di
-from videorenderer_tpu.ops import dovi, geometry, overlay, transfer
+from videorenderer.ops import deinterlace as di
+from videorenderer.ops import dovi, geometry, overlay, transfer
 
 
 # -- deinterlace --------------------------------------------------------------

@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from videorenderer_tpu import (ColorFormat, OutputDescriptor, Settings,
+from videorenderer import (ColorFormat, OutputDescriptor, Settings,
                                SourceDescriptor)
-from videorenderer_tpu.csputils import CSP
-from videorenderer_tpu.parallel.mesh import (halo_exchange, make_mesh,
+from videorenderer.csputils import CSP
+from videorenderer.parallel.mesh import (halo_exchange, make_mesh,
                                              shard_batch)
-from videorenderer_tpu.pipeline import make_frame_fn, plan_pipeline
+from videorenderer.pipeline import make_frame_fn, plan_pipeline
 
 
 def test_make_mesh_and_shard_batch():
@@ -63,3 +63,23 @@ def test_halo_exchange_roundtrip():
     # shard 0's top halo replicates row 0 (edge clamp)
     np.testing.assert_array_equal(out[0], x[0])
     np.testing.assert_array_equal(out[1], x[0])
+
+
+def test_spatial_resize_rows_highest_precision():
+    """The row-sharded resize asks for full float32 products (a float32
+    matmul at DEFAULT precision may run in TF32 on a GPU), and matches the
+    unsharded matmul."""
+    from jax import shard_map
+    from videorenderer.ops.scale import upscale_matrix
+    from videorenderer.parallel.mesh import spatial_resize_rows
+    from videorenderer.config import Upscaling
+
+    mesh = Mesh(np.array(jax.devices()[:4]), ("rows",))
+    mat = upscale_matrix(Upscaling.CATMULL_ROM, 32, 64)
+    x = np.random.default_rng(2).random((3, 32, 8)).astype(np.float32)
+    fn = jax.jit(shard_map(
+        lambda b: spatial_resize_rows(b, mat, 2, "rows"), mesh=mesh,
+        in_specs=P(None, "rows", None), out_specs=P(None, "rows", None)))
+    assert "HIGHEST" in fn.lower(x).as_text()
+    ref = np.einsum("chw,hH->cHw", x.astype(np.float64), mat)
+    np.testing.assert_allclose(np.asarray(fn(x)), ref, atol=1e-5)

@@ -2,9 +2,9 @@
 
 import dataclasses
 
-from videorenderer_tpu.config import (HdrToggleDisplay, Settings, ToneMapType,
+from videorenderer.config import (HdrToggleDisplay, Settings, ToneMapType,
                                       Upscaling)
-from videorenderer_tpu.proppage import FIELDS, PropertyPageModel
+from videorenderer.proppage import FIELDS, PropertyPageModel
 
 
 def spec(name):
@@ -88,7 +88,7 @@ def test_display_strings():
 def test_info_page_model_lazy_scroll_refresh():
     """Info page (CVRInfoPPage analogue): provider is called lazily on first
     view, refresh re-queries it, and scrolling clamps at both ends."""
-    from videorenderer_tpu.proppage import InfoPageModel
+    from videorenderer.proppage import InfoPageModel
     calls = []
 
     def provider():
@@ -110,7 +110,7 @@ def test_info_page_model_lazy_scroll_refresh():
 
 
 def test_info_page_model_provider_error():
-    from videorenderer_tpu.proppage import InfoPageModel
+    from videorenderer.proppage import InfoPageModel
     m = InfoPageModel(lambda: (_ for _ in ()).throw(RuntimeError("boom")))
     assert "info unavailable" in m.visible(1)[0]
 
@@ -118,8 +118,8 @@ def test_info_page_model_provider_error():
 def test_info_page_model_renderer_report():
     """The CLI wires the page to GetVPInfo; the report renders for a plain
     Settings value without an open media type."""
-    from videorenderer_tpu.api import VideoRenderer
-    from videorenderer_tpu.proppage import InfoPageModel
+    from videorenderer.api import VideoRenderer
+    from videorenderer.proppage import InfoPageModel
     m = InfoPageModel(
         lambda: VideoRenderer(Settings()).get_video_processor_info())
-    assert any("videorenderer_tpu" in ln for ln in m.visible(10))
+    assert any("videorenderer" in ln for ln in m.visible(10))

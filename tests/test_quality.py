@@ -5,8 +5,8 @@ the reference's decisions."""
 
 import numpy as np
 
-from videorenderer_tpu.runner import PresentClock, QualityManager
-from videorenderer_tpu.stats import Metrics
+from videorenderer.runner import PresentClock, QualityManager
+from videorenderer.stats import Metrics
 
 DUR = 1.0 / 60.0
 

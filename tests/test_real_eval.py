@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from videorenderer_tpu.models import real_eval
+from videorenderer.models import real_eval
 
 
 def test_real_frames_deterministic_and_bounded():
@@ -21,7 +21,7 @@ def test_real_frames_deterministic_and_bounded():
 
 
 def test_real_hdr_frames_grade():
-    from videorenderer_tpu.models.videohdr import VideoHDRConfig
+    from videorenderer.models.videohdr import VideoHDRConfig
     cfg = VideoHDRConfig()
     hdr = real_eval.real_hdr_frames(4, 96, seed=3, cfg=cfg)
     assert hdr.shape == (4, 96, 96, 3)
@@ -33,7 +33,7 @@ def test_real_hdr_frames_grade():
 def test_shipped_videohdr_beats_base_on_real_content():
     """The shipped VideoHDR checkpoint must beat the deterministic
     inverse-tonemap base on real-texture content, not just synthetic."""
-    from videorenderer_tpu.models.hdr_train import evaluate_pq_psnr
+    from videorenderer.models.hdr_train import evaluate_pq_psnr
     params, cfg = real_eval.load_shipped_videohdr()
     hdr = real_eval.real_hdr_frames(6, 96, seed=7, cfg=cfg)
     net_db, base_db = evaluate_pq_psnr(params, cfg, hdr)
@@ -69,7 +69,7 @@ def test_shipped_superres_wins_on_real_content():
     wins ≥ +1.2 dB on four photos and +0.1–0.2 on the other webcam
     shot.  Training/selection never sees these photos or this crop seed
     (scripts/sr_train_gated.py)."""
-    from videorenderer_tpu.models.sr_train import evaluate_psnr
+    from videorenderer.models.sr_train import evaluate_psnr
     params, cfg = real_eval.load_shipped_superres()
     margins = {}
     for name, img in real_eval.real_photos():

@@ -1,21 +1,18 @@
-"""Fused rotation (rotation rides the resize): transform algebra, dither
-pattern transforms, and the rotated one-pass Jinc2 kernel vs rotating the
-finished surface.  Reference semantics: rotation is a vertex permutation of
+"""Rotation algebra: axis-map transforms, dither pattern transforms, and
+make_frame_fn's rotation vs rotating the finished surface.  Reference semantics: rotation is a vertex permutation of
 the resize pass, not an extra pass (FillVertices + ResizeShaderPass,
 Source/DX11VideoProcessor.cpp:130-179,3115-3199)."""
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
-from videorenderer_tpu import (ColorFormat, OutputDescriptor, Settings,
+from videorenderer import (ColorFormat, OutputDescriptor, Settings,
                                SourceDescriptor)
-from videorenderer_tpu.config import Upscaling
-from videorenderer_tpu.csputils import CSP
-from videorenderer_tpu.ops import dither as dither_ops
-from videorenderer_tpu.ops import geometry as geo
-from videorenderer_tpu.pipeline import make_frame_fn, plan_pipeline
+from videorenderer.csputils import CSP
+from videorenderer.ops import dither as dither_ops
+from videorenderer.ops import geometry as geo
+from videorenderer.pipeline import make_frame_fn, plan_pipeline
 
 ALL_RF = [(r, f) for r in (0, 90, 180, 270) for f in (False, True)]
 
@@ -55,7 +52,7 @@ def test_bayer_field_transform(rotation, flip):
 
 
 def test_make_frame_fn_rotation_fallback_matches():
-    """Non-kernel paths: make_frame_fn(rotation=...) == rotate_flip of the
+    """Fused path: make_frame_fn(rotation=...) == rotate_flip of the
     unrotated output, bit-for-bit (the wrapper composition)."""
     rng = np.random.default_rng(3)
     w, h = 64, 48
@@ -73,72 +70,3 @@ def test_make_frame_fn_rotation_fallback_matches():
                                        flip=flip)(planes))
         ref = np.asarray(geo.rotate_flip(jnp.asarray(base), rotation, flip))
         np.testing.assert_array_equal(got, ref)
-
-
-@pytest.mark.parametrize("rotation,flip", [(90, True), (90, False),
-                                           (270, False), (180, True)])
-def test_jinc2_fused_rotation_interpret(monkeypatch, rotation, flip):
-    """Rotation on the one-pass Jinc2 chain vs rotating the unrotated
-    kernel's packed surface.  (90, True) is a pure transpose and rides the
-    kernel as a transposed STORE (compute untouched — see
-    test_jinc2_fused_transpose_bit_identical for the exact gate); the other
-    rotations fall back to the XLA chain + post-rotation, whose per-rank
-    accumulation order differs, so quantization-boundary codes may flip by
-    1 LSB."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    rng = np.random.default_rng(17)
-    w, h = 64, 48
-    planes = (rng.integers(0, 256, (h, w), np.uint8),
-              rng.integers(0, 256, (h // 2, w // 2), np.uint8),
-              rng.integers(0, 256, (h // 2, w // 2), np.uint8))
-    src = SourceDescriptor(format=ColorFormat.NV12, width=w, height=h,
-                           matrix=CSP.BT_709)
-    dst = OutputDescriptor(width=128, height=96, bits=8)
-    st = Settings(upscaling=Upscaling.JINC2, use_dither=True)
-    plan = plan_pipeline(st, src, dst)
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    with pltpu.force_tpu_interpret_mode():
-        base = np.asarray(make_frame_fn(plan, fused=False,
-                                        pack_surface=True)(planes))
-        got = np.asarray(make_frame_fn(plan, fused=False, pack_surface=True,
-                                       rotation=rotation,
-                                       flip=flip)(planes))
-    ref = np.asarray(geo.rotate_flip(jnp.asarray(base), rotation, flip))
-    assert got.shape == ref.shape
-    ga, ra = got.view(np.uint32), ref.view(np.uint32)
-    # decoded channel deltas: at most 1 LSB, on isolated boundary codes
-    db = np.stack([(ga >> s) & 0xFF for s in (0, 8, 16)], 0).astype(int)
-    rb = np.stack([(ra >> s) & 0xFF for s in (0, 8, 16)], 0).astype(int)
-    assert np.abs(db - rb).max() <= 1
-    assert (db != rb).mean() < 0.02
-
-
-def test_jinc2_fused_transpose_bit_identical(monkeypatch):
-    """rotation 90 + flip (a pure transpose) rides the one-pass Jinc2
-    kernel as a transposed STORE: the compute is the unrotated program's,
-    so the packed surface must equal the transposed unrotated surface
-    BIT-FOR-BIT (the r5 design constraint that replaced the rotated-
-    geometry variant — interpret-exact but hardware-corrupt, see the note
-    in pipeline.make_frame_fn)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    rng = np.random.default_rng(23)
-    w, h = 64, 48
-    planes = (rng.integers(0, 256, (h, w), np.uint8),
-              rng.integers(0, 256, (h // 2, w // 2), np.uint8),
-              rng.integers(0, 256, (h // 2, w // 2), np.uint8))
-    src = SourceDescriptor(format=ColorFormat.NV12, width=w, height=h,
-                           matrix=CSP.BT_709)
-    dst = OutputDescriptor(width=128, height=96, bits=8)
-    st = Settings(upscaling=Upscaling.JINC2, use_dither=True)
-    plan = plan_pipeline(st, src, dst)
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    with pltpu.force_tpu_interpret_mode():
-        base = np.asarray(make_frame_fn(plan, fused=False,
-                                        pack_surface=True)(planes))
-        got = np.asarray(make_frame_fn(plan, fused=False, pack_surface=True,
-                                       rotation=90, flip=True)(planes))
-    np.testing.assert_array_equal(got, base.T)

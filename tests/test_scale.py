@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from videorenderer_tpu.config import Downscaling, Upscaling
-from videorenderer_tpu.ops import scale
+from videorenderer.config import Downscaling, Upscaling
+from videorenderer.ops import scale
 
 from oracle import conv_resize_axis, interp_resize_axis
 
@@ -126,7 +126,7 @@ def test_jinc2_identity_at_integer_positions():
 
 def test_jinc2_phase_path_matches_gather():
     """Rational-scale phase decomposition == the general gather formulation."""
-    from videorenderer_tpu.ops.scale import _jinc2_phases, _phase_period
+    from videorenderer.ops.scale import _jinc2_phases, _phase_period
     rng = np.random.default_rng(9)
     x = rng.random((2, 24, 32)).astype(np.float32)
     for (oh, ow) in [(48, 64), (36, 48), (24, 32)]:
@@ -139,12 +139,12 @@ def test_jinc2_phase_path_matches_gather():
 
 
 def test_band_diagonals_stencil_matches_matmul():
-    from videorenderer_tpu.ops.scale import (band_diagonals,
+    from videorenderer.ops.scale import (band_diagonals,
                                              stencil_resize_last_axis,
                                              stencil_resize_rows)
-    from videorenderer_tpu.ops.chroma import chroma_upsample_matrices
-    from videorenderer_tpu.config import ChromaScaling
-    from videorenderer_tpu.csputils import ChromaLocation
+    from videorenderer.ops.chroma import chroma_upsample_matrices
+    from videorenderer.config import ChromaScaling
+    from videorenderer.csputils import ChromaLocation
     # composed chroma-up x downscale at net scale 1 (the 4K->1080p case)
     ux, uy = chroma_upsample_matrices(64, 32, 420, ChromaScaling.BILINEAR,
                                       ChromaLocation.MPEG2)
@@ -164,7 +164,7 @@ def test_band_diagonals_stencil_matches_matmul():
 
 
 def test_band_diagonals_rejects_wide_or_nonsquare():
-    from videorenderer_tpu.ops.scale import band_diagonals
+    from videorenderer.ops.scale import band_diagonals
     assert band_diagonals(np.asarray(scale.upscale_matrix(
         Upscaling.LANCZOS3, 64, 128))) is None   # non-square
     wide = np.ones((64, 64))
@@ -182,14 +182,14 @@ def test_lanczos3_reference_bug_compat():
 
 
 def test_jinc2_lowrank_matches_gather():
-    """The low-rank separable (MXU) formulation == the general gather
+    """The low-rank separable (matmul) formulation == the general gather
     formulation, rational and irrational-period scales alike, to the
     documented truncation bound: the SVD rank cutoff _JINC2_SV_CUTOFF
     drops singular values <= 1e-4 relative, so weights (and therefore
     [0,1]-signal outputs) may differ from the exact gather by a few times
     that — an ~-80 dB floor, far below the 8-bit quantization the
     pipeline ends in.  2x upscales are rank-4 EXACT (tested at 1e-6)."""
-    from videorenderer_tpu.ops.scale import _jinc2_lowrank
+    from videorenderer.ops.scale import _jinc2_lowrank
     rng = np.random.default_rng(10)
     x = rng.random((2, 24, 32)).astype(np.float32)
     for (oh, ow) in [(48, 64), (36, 48), (37, 53), (24, 61)]:
@@ -203,7 +203,7 @@ def test_jinc2_lowrank_normalization_vectors():
     """wsum factorization == the true per-pixel weight sums, to the same
     _JINC2_SV_CUTOFF truncation bound (numerator and normalization
     truncate together, so the resample RATIO error stays first-order)."""
-    from videorenderer_tpu.ops.scale import (_jinc2_g, _jinc2_tap_data,
+    from videorenderer.ops.scale import (_jinc2_g, _jinc2_tap_data,
                                              jinc2_lr_matrices)
     in_h, out_h, in_w, out_w = 20, 47, 30, 29
     _, _, ay, bx = jinc2_lr_matrices(in_h, out_h, in_w, out_w)

@@ -6,15 +6,15 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import Mesh
 
-from videorenderer_tpu import (ColorFormat, OutputDescriptor, Settings,
+from videorenderer import (ColorFormat, OutputDescriptor, Settings,
                                SourceDescriptor)
-from videorenderer_tpu.csputils import CSP
-from videorenderer_tpu.config import Upscaling
-from videorenderer_tpu.parallel.spatial import (make_spatial_frame_fn,
+from videorenderer.csputils import CSP
+from videorenderer.config import Upscaling
+from videorenderer.parallel.spatial import (make_spatial_frame_fn,
                                                 required_halo,
                                                 shard_planes_rows)
-from videorenderer_tpu.pipeline import make_frame_fn, plan_pipeline
-from videorenderer_tpu.ops import scale
+from videorenderer.pipeline import make_frame_fn, plan_pipeline
+from videorenderer.ops import scale
 
 
 def test_required_halo():
@@ -113,7 +113,7 @@ def test_spatial_guards():
 
 
 def test_spatial_dither_and_hdr():
-    from videorenderer_tpu.csputils import Levels, Primaries, TRC
+    from videorenderer.csputils import Levels, Primaries, TRC
     mesh = Mesh(np.array(jax.devices()[:2]), ("spatial",))
     w, h = 64, 32
     src = SourceDescriptor(format=ColorFormat.P010, width=w, height=h,
@@ -135,9 +135,9 @@ def test_spatial_dither_and_hdr():
 def test_spatial_pack_surface():
     """Per-shard packed-surface output equals packing the unpacked sharded
     result."""
-    from videorenderer_tpu.parallel.spatial import (make_spatial_frame_fn,
+    from videorenderer.parallel.spatial import (make_spatial_frame_fn,
                                                     shard_planes_rows)
-    from videorenderer_tpu.pipeline import _pack_surface_xla
+    from videorenderer.pipeline import _pack_surface_xla
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
@@ -166,7 +166,7 @@ def test_spatial_pad_and_crop_1080p():
     1080/540 rows are not divisible by 8, so planes pad to 1088/544 with
     zero-weight rows and the surface pads to the next mesh multiple; the
     cropped output is bit-identical to the single-chip fused path."""
-    from videorenderer_tpu.parallel.spatial import (pad_shard_planes_rows,
+    from videorenderer.parallel.spatial import (pad_shard_planes_rows,
                                                     spatial_padded_heights)
     mesh = Mesh(np.array(jax.devices()[:8]), ("spatial",))
     w, h = 128, 108            # 1080p geometry /10: same divisibility shape
@@ -193,8 +193,8 @@ def test_spatial_pad_and_crop_1080p():
 
 def test_spatial_pad_batched_and_packed():
     """Pad-and-crop with a batch dim and packed-surface output."""
-    from videorenderer_tpu.parallel.spatial import pad_shard_planes_rows
-    from videorenderer_tpu.pipeline import _pack_surface_xla
+    from videorenderer.parallel.spatial import pad_shard_planes_rows
+    from videorenderer.pipeline import _pack_surface_xla
     mesh = Mesh(np.array(jax.devices()[:8]), ("spatial",))
     w, h, ow, oh = 64, 52, 64, 52
     src = SourceDescriptor(format=ColorFormat.NV12, width=w, height=h,
@@ -246,7 +246,7 @@ def test_spatial_single_shard_fast_path():
     # packed-surface variant rides the same fast path
     fn1p = jax.jit(make_spatial_frame_fn(plan, mesh1, pack_surface=True))
     got1p = np.asarray(fn1p(shard_planes_rows(mesh1, planes)))
-    from videorenderer_tpu.pipeline import _pack_surface_xla
+    from videorenderer.pipeline import _pack_surface_xla
     np.testing.assert_array_equal(
         got1p, np.asarray(_pack_surface_xla(jnp.asarray(ref), "rgba8")))
 
@@ -257,8 +257,8 @@ def test_spatial_single_shard_fast_path():
 
 
 def _dovi_poly_meta():
-    from videorenderer_tpu.ops import dovi as dovi_ops
-    from videorenderer_tpu.ops.dovi import ReshapeCurve
+    from videorenderer.ops import dovi as dovi_ops
+    from videorenderer.ops.dovi import ReshapeCurve
     curve = ReshapeCurve(pivots=(0.5,), method=(0, 0),
                          poly=np.array([[0.02, 0.9, 0.1],
                                         [0.0, 1.05, -0.05]]))
@@ -272,7 +272,7 @@ def _dovi_poly_meta():
 
 
 def _dovi_src(w, h, **over):
-    from videorenderer_tpu.csputils import Primaries, TRC
+    from videorenderer.csputils import Primaries, TRC
     return SourceDescriptor(format=ColorFormat.P010, width=w, height=h,
                             transfer=TRC.PQ, primaries=Primaries.BT_2020,
                             matrix=CSP.BT_2020_NC, dovi=_dovi_poly_meta(),
@@ -292,7 +292,7 @@ def test_spatial_dovi_matches_single(out_size):
     """Row-sharded DoVi split-fused pipeline is bit-identical to the
     single-chip split-fused path: reshape/matrix/LMS are row-local, only
     the chroma-upsample and resize H contractions exchange halos."""
-    from videorenderer_tpu.pipeline import _can_split_fuse
+    from videorenderer.pipeline import _can_split_fuse
     ow, oh = out_size
     w, h = 32, 32
     mesh = Mesh(np.array(jax.devices()[:4]), ("spatial",))
@@ -313,7 +313,7 @@ def test_spatial_dovi_vrect_dither_and_pack():
     chain amplifies the per-shard matmul's reduction-order ULPs (~x80
     luminance scale through the EOTF), so quantized codes may flip by 1 LSB
     at dither thresholds — the same bar as test_fused."""
-    from videorenderer_tpu.pipeline import _pack_surface_xla
+    from videorenderer.pipeline import _pack_surface_xla
     w, h = 32, 32
     mesh = Mesh(np.array(jax.devices()[:4]), ("spatial",))
     src = _dovi_src(w, h)
@@ -342,7 +342,7 @@ def test_spatial_dovi_vrect_dither_and_pack():
 def test_spatial_dovi_pad_and_crop():
     """Non-divisible DoVi heights take the pad-and-crop fallback (the 8K
     oversized-frame story for split-fused chains)."""
-    from videorenderer_tpu.parallel.spatial import pad_shard_planes_rows
+    from videorenderer.parallel.spatial import pad_shard_planes_rows
     w, h = 32, 28           # chroma 14 rows: not divisible by 4 shards
     mesh = Mesh(np.array(jax.devices()[:4]), ("spatial",))
     src = _dovi_src(w, h)
@@ -423,46 +423,6 @@ def test_spatial_jinc2_mixed_axes_raise():
         make_spatial_frame_fn(plan, mesh)
 
 
-def test_spatial_mid16_interpret(monkeypatch):
-    """The spatial fusable path's compact int16 W intermediates (same
-    policy as pipeline._make_fused_fn) agree with the single-chip fused
-    kernel path to the mid16 fixed-point band, on a 1-shard mesh in
-    interpret mode (kernels real, no shard_map collectives)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    w, h = 64, 48
-    src = SourceDescriptor(format=ColorFormat.NV12, width=w, height=h,
-                           matrix=CSP.BT_709)
-    dst = OutputDescriptor(width=128, height=96, bits=8)
-    plan = plan_pipeline(Settings(use_dither=False,
-                                  upscaling=Upscaling.LANCZOS3), src, dst)
-    rng = np.random.default_rng(31)
-    planes = tuple(jnp.asarray(p) for p in (
-        rng.integers(0, 256, (h, w), np.uint8),
-        rng.integers(0, 256, (h // 2, w // 2), np.uint8),
-        rng.integers(0, 256, (h // 2, w // 2), np.uint8)))
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    mesh = Mesh(np.array(jax.devices()[:1]), ("spatial",))
-    with pltpu.force_tpu_interpret_mode():
-        single = np.asarray(make_frame_fn(plan)(planes))
-        got = np.asarray(make_spatial_frame_fn(plan, mesh)(
-            shard_planes_rows(mesh, planes)))
-    # both paths quantize the SAME W-passed planes to the same int16 grid;
-    # they differ only in unscale-fold rounding (weights vs epilogue)
-    np.testing.assert_allclose(got, single, atol=3e-4)
-
-    # and vs the CPU staged path: the 8-bit output quantization turns the
-    # 2^-14 fixed-point noise into isolated single-LSB flips
-    ref = np.asarray(make_frame_fn(
-        plan_pipeline(Settings(use_dither=False, use_accel_backend=False,
-                               upscaling=Upscaling.LANCZOS3), src, dst))(
-        planes))
-    diff = np.abs(got - ref)
-    assert diff.max() <= 1.5 / 255
-    assert (diff > 0.5 / 255).mean() < 0.02
-
-
 def _nv12_planes(rng, w, h):
     return (rng.integers(0, 256, (h, w), np.uint8),
             rng.integers(0, 256, (h // 2, w // 2), np.uint8),
@@ -473,10 +433,10 @@ def test_spatial_learned_superres_exact():
     """Learned-model plan class, SR: halo-extended per-shard conv trunk is
     bit-identical to enhance_plane_chw over the single-chip frame (conv
     SAME zero-padding reproduced by zeroed out-of-frame halo rows)."""
-    from videorenderer_tpu.models.superres import (SuperResConfig,
+    from videorenderer.models.superres import (SuperResConfig,
                                                    enhance_plane_chw,
                                                    init_params)
-    from videorenderer_tpu.parallel.spatial import make_spatial_learned_fn
+    from videorenderer.parallel.spatial import make_spatial_learned_fn
 
     cfg = SuperResConfig(channels=8, num_blocks=1, scale=2, s2d=2)
     params = init_params(jax.random.PRNGKey(7), cfg)
@@ -514,10 +474,10 @@ def test_spatial_learned_videohdr_halo_math_exact():
     including the global-edge shards, where row_valid re-zeroes each
     conv's out-of-frame rows so fake halo rows never accumulate
     relu(bias) activations that whole-frame SAME padding lacks."""
-    from videorenderer_tpu.models.videohdr import (VideoHDRConfig,
+    from videorenderer.models.videohdr import (VideoHDRConfig,
                                                    enhance_plane_chw,
                                                    init_params)
-    from videorenderer_tpu.parallel.spatial import model_receptive_radius_s2d
+    from videorenderer.parallel.spatial import model_receptive_radius_s2d
 
     # f32 compute isolates the halo MATH from bf16 conv rounding (XLA's
     # conv lowering is not bit-stable across input heights in bf16)
@@ -557,13 +517,13 @@ def test_spatial_learned_videohdr_packed_band():
     math itself is proven exact by
     test_spatial_learned_videohdr_halo_math_exact; the SR class, whose
     convs lower identically, IS asserted bit-equal.)"""
-    from videorenderer_tpu.models.videohdr import (VideoHDRConfig,
+    from videorenderer.models.videohdr import (VideoHDRConfig,
                                                    enhance_plane_chw,
                                                    init_params)
-    from videorenderer_tpu.parallel.spatial import (make_spatial_learned_fn,
+    from videorenderer.parallel.spatial import (make_spatial_learned_fn,
                                                     pad_shard_planes_rows,
                                                     spatial_padded_heights)
-    from videorenderer_tpu.formats import unpack_rgb10
+    from videorenderer.formats import unpack_rgb10
 
     cfg = VideoHDRConfig(channels=8, s2d=2)
     params = init_params(jax.random.PRNGKey(3), cfg)
@@ -600,9 +560,9 @@ def test_spatial_learned_videohdr_packed_band():
 
 def test_spatial_learned_guards():
     """s2d-divisibility and halo-size guards raise with guidance."""
-    from videorenderer_tpu.models.superres import (SuperResConfig,
+    from videorenderer.models.superres import (SuperResConfig,
                                                    init_params)
-    from videorenderer_tpu.parallel.spatial import make_spatial_learned_fn
+    from videorenderer.parallel.spatial import make_spatial_learned_fn
 
     mesh = Mesh(np.array(jax.devices()[:4]), ("spatial",))
     src = SourceDescriptor(format=ColorFormat.NV12, width=64, height=44,

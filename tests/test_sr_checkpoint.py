@@ -9,9 +9,9 @@ import pytest
 
 import jax
 
-from videorenderer_tpu.models.checkpoint import load_params
-from videorenderer_tpu.models.sr_train import evaluate_psnr, synth_frames
-from videorenderer_tpu.models.superres import SuperResConfig, init_params
+from videorenderer.models.checkpoint import load_params
+from videorenderer.models.sr_train import evaluate_psnr, synth_frames
+from videorenderer.models.superres import SuperResConfig, init_params
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "weights",
                     "superres_2x.npz")

@@ -10,9 +10,9 @@ import pytest
 
 import jax
 
-from videorenderer_tpu.models.sr_train import (degrade, evaluate_psnr,
+from videorenderer.models.sr_train import (degrade, evaluate_psnr,
                                                synth_frames, train)
-from videorenderer_tpu.models.superres import (SuperResConfig, apply_fn,
+from videorenderer.models.superres import (SuperResConfig, apply_fn,
                                                init_params)
 
 TINY = SuperResConfig(channels=16, num_blocks=1, s2d=2)
@@ -74,7 +74,7 @@ def test_natural_frames_statistics():
     """The generative natural-statistics frames: deterministic, bounded,
     and actually pink — the radially-averaged power spectrum must fall
     with frequency (slope well below white noise's flat spectrum)."""
-    from videorenderer_tpu.models.sr_train import natural_frames
+    from videorenderer.models.sr_train import natural_frames
     a = natural_frames(seed=11, n=6, size=64)
     b = natural_frames(seed=11, n=6, size=64)
     np.testing.assert_array_equal(a, b)
@@ -101,7 +101,7 @@ def test_natural_frames_statistics():
 
 def test_natural_frames_train_smoke():
     """A tiny net trains on a natural-mix blend without degenerating."""
-    from videorenderer_tpu.models.sr_train import natural_frames
+    from videorenderer.models.sr_train import natural_frames
     data = np.concatenate([synth_frames(seed=2, n=12, size=32),
                            natural_frames(seed=3, n=12, size=32)])
     params, losses = train(TINY, steps=30, batch=8, data_hr=data, seed=0,

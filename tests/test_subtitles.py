@@ -5,7 +5,7 @@ import time
 import numpy as np
 import jax.numpy as jnp
 
-from videorenderer_tpu.subtitles import (PushSubtitleBridge, SubPic,
+from videorenderer.subtitles import (PushSubtitleBridge, SubPic,
                                          SubPicQueue, SubPicQueueNoThread,
                                          TextEvent, TextSubtitleProvider,
                                          composite)

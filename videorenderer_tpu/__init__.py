@@ -1,34 +1,42 @@
-"""videorenderer_tpu — a TPU-native video-processing framework with the
-capabilities of MPC Video Renderer (Aleksoid1978/VideoRenderer), rebuilt
-from scratch on JAX/XLA/Pallas.
+"""Deprecated alias of :mod:`videorenderer`, the package's name since 0.4.
 
-The reference is a Windows DirectShow renderer filter; this package rebuilds
-its processing engine — format conversion, chroma upsampling, YUV->RGB,
-deinterlacing, scaling, HDR tone mapping, gamut conversion, Dolby Vision
-reshaping, dithering and subtitle/OSD composition — as pure, jit-compiled
-functions over batched frame tensors, designed for TPU throughput
-(MXU matmuls for resampling, VPU elementwise chains, Pallas fusions,
-jax.sharding for multi-chip scale-out).
+Importing this package, or any of its submodules, returns the module
+objects of ``videorenderer`` themselves (one copy of each, so classes,
+caches and registries are shared).  New code imports ``videorenderer``.
 """
 
-from .config import (ChromaScaling, Deinterlacing, Downscaling, Settings,
-                     SuperResolution, SwapEffect, TexFormat, ToneMapType,
-                     Upscaling)
-from .csputils import CSP, ChromaLocation, Levels, Primaries, TRC
-from .formats import ColorFormat, PlanarFrame, get_format_info, unpack_frame
-from .pipeline import (HDR10Metadata, OutputDescriptor, SourceDescriptor,
-                       VideoProcessor, make_frame_fn, make_serving_fn,
-                       plan_pipeline)
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-__version__ = "0.3.0"
+import videorenderer
 
-from .api import VideoRenderer  # noqa: E402  (needs __version__ above)
+_NEW = videorenderer.__name__
+_OLD = __name__
 
-__all__ = [
-    "CSP", "ChromaLocation", "ChromaScaling", "ColorFormat", "Deinterlacing",
-    "Downscaling", "HDR10Metadata", "Levels", "OutputDescriptor",
-    "PlanarFrame", "Primaries", "Settings", "SourceDescriptor",
-    "SuperResolution", "SwapEffect", "TRC", "TexFormat", "ToneMapType",
-    "Upscaling", "VideoProcessor", "VideoRenderer", "get_format_info",
-    "make_frame_fn", "make_serving_fn", "plan_pipeline", "unpack_frame",
-]
+
+class _AliasFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<alias>.x.y`` to the module ``videorenderer.x.y``."""
+
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.startswith(_OLD + "."):
+            return importlib.util.spec_from_loader(fullname, self)
+        return None
+
+    def create_module(self, spec):
+        module = importlib.import_module(_NEW + spec.name[len(_OLD):])
+        spec.loader_state = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # the import system stamps the alias spec on the shared module;
+        # give it back its own
+        module.__spec__ = module.__spec__.loader_state
+
+
+warnings.warn(f"{_OLD} is deprecated; import {_NEW}", DeprecationWarning,
+              stacklevel=2)
+sys.meta_path.insert(0, _AliasFinder())
+sys.modules[_OLD] = videorenderer
